@@ -5,8 +5,8 @@ Runs `MultiCellUpperPhy` with N cells of the 273-PRB QAM256 4-port 2-layer
 PUSCH config as ONE sharded program over the available device mesh and
 reports aggregate slot rate + scaling efficiency vs N=1.
 
-On the real TPU chip all cells batch on one device (the multi-cell aggregate
-the 2000 slots/s bound speaks about); under the CPU test harness the cells
+On one GPU all cells batch on one device (the multi-cell aggregate the
+2000 slots/s bound speaks about); under the CPU test harness the cells
 shard over the 8 virtual devices (correctness/scaling-shape validation — the
 8 virtual devices share the host's physical cores, so wall-clock efficiency
 is bounded by the core count, not the mesh).
@@ -41,8 +41,7 @@ def main():
 
     ndev = len(jax.devices())
     platform = jax.devices()[0].platform
-    on_tpu = platform != "cpu"
-    rounds = int(os.environ.get("ROUNDS", "6" if on_tpu else "2"))
+    rounds = int(os.environ.get("ROUNDS", "2" if platform == "cpu" else "6"))
     cells_list = [int(x) for x in
                   os.environ.get("CELLS", "1,2,4").split(",")]
 

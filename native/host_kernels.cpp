@@ -1,8 +1,8 @@
 // Native host-side kernels for srsran_projectvtlmo_tpu.
 //
 // The reference implements its host hot paths in C++ (bit packing in
-// srsvec, CRC tables, lock-free SPSC sample queues); the TPU rebuild keeps the
-// device math in XLA/Pallas and uses this small library for the host runtime:
+// srsvec, CRC tables, lock-free SPSC sample queues); the rebuild keeps the
+// device math in XLA (and CUDA) and uses this small library for the host runtime:
 // bit packing, table CRC, an SPSC float ring buffer for IQ streaming, and raw
 // IQ file IO. Exposed with a plain C ABI for ctypes.
 //

@@ -1,9 +1,10 @@
-"""srsran_projectvtlmo_tpu: a TPU-native 5G NR upper-PHY framework.
+"""srsran_projectvtlmo_tpu: a 5G NR upper-PHY framework for accelerators.
 
-A from-scratch JAX/XLA/Pallas rebuild of the srsRAN Project's upper-PHY signal
-chain (reference: /root/reference, C++ 5G RAN).  The compute path (OFDM, LDPC,
+A from-scratch JAX rebuild of the srsRAN Project's upper-PHY signal chain
+(reference: the srsRAN Project, C++ 5G RAN).  The compute path (OFDM, LDPC,
 polar, channel estimation, equalization, PRACH correlation) runs as batched,
-jitted array programs and Pallas TPU kernels; host Python orchestrates slots.
+jitted array programs, with one CUDA kernel (the early-stop LDPC decoder) on
+the GPU; host Python orchestrates slots.
 
 Layout:
   ran/       exact-integer 3GPP math (TBS, segmentation, rate-match params, tables)

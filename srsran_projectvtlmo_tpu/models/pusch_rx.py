@@ -37,6 +37,7 @@ from ..ops.equalization import (
 from ..ops.demodulation import soft_demap
 from ..ops.ldpc import rate_matching as rm
 from ..ops.ldpc.decode import ldpc_decode
+from ..ops.ldpc.select import es_decoder
 from .sch_config import SchChainConfig
 
 
@@ -47,11 +48,9 @@ class PuschRxConfig(SchChainConfig):
     numerology: int = 1
     slot: int = 0
     nof_ldpc_iterations: int = 6
-    #: Use the Pallas TPU kernel for the LDPC decoder (bit-exact vs the XLA
-    #: path; substantially faster on real hardware).  None = auto: True on
-    #: TPU, False elsewhere (the reference's impl selection "auto",
-    #: channel_coding_factories.cpp:103-110).
-    use_pallas_decoder: bool | None = None
+    #: Early-stop LDPC decoder: "cuda" (the GPU kernel), "xla", or None to
+    #: let the platform choose (ops.ldpc.select; bit-exact either way).
+    ldpc_decoder: str | None = None
     #: Stop LDPC iterations per codeblock once its CRC passes (bit-exact with
     #: the reference's per-iteration CRC stop,
     #: lib/phy/upper/channel_coding/ldpc/ldpc_decoder_impl.cpp:126-134);
@@ -189,15 +188,6 @@ def cached_demux_plan(cfg: "PuschRxConfig", nof_csi_part2_bits: int | None = Non
     return cfg.demux_plan(nof_csi_part2_bits)
 
 
-def _resolve_use_pallas(flag: bool | None) -> bool:
-    """Decoder impl selection "auto": the Pallas kernel on TPU, the XLA
-    program elsewhere (interpret-mode Pallas is test-only)."""
-    if flag is not None:
-        return flag
-    dev0 = jax.devices()[0]
-    return dev0.platform == "tpu" or "TPU" in str(dev0)
-
-
 def flatten_tb_bits(tb_bits_cb, tbs: int):
     """(B, C, Kpay) per-codeblock payload bits -> (B, tbs) TB bits.
 
@@ -256,24 +246,13 @@ def _decode_sch_groups(cfg: PuschRxConfig, parts, cb_ranges, harq_buffer):
         # verdict doubles as the CB CRC check).
         crc_cb = ("CRC24B" if seg.cb_crc_bits
                   else ("CRC24A" if seg.tb_crc_bits == 24 else "CRC16"))
-        if _resolve_use_pallas(cfg.use_pallas_decoder):
-            from ..ops.ldpc.decode_pallas import ldpc_decode_pallas_es_bm
-
-            dec = functools.partial(
-                ldpc_decode_pallas_es_bm, bg=seg.base_graph, z=z,
-                crc_name=crc_cb, nof_crc_covered_bits=kp,
-                max_iterations=cfg.nof_ldpc_iterations)
-        else:
-            from ..ops.ldpc.decode import ldpc_decode_es
-
-            def dec(llr_flat):
-                return ldpc_decode_es(
-                    llr_flat, seg.base_graph, z, crc_cb, kp,
-                    nof_iterations=cfg.nof_ldpc_iterations)
+        es_decode = es_decoder(cfg.ldpc_decoder)
         hards, oks, its = [], [], []
         for part in parts:
             cg = part.shape[1]
-            h_g, _, ok_g, it_g = dec(part.reshape(b * cg, -1))
+            h_g, _, ok_g, it_g = es_decode(
+                part.reshape(b * cg, -1), seg.base_graph, z, crc_cb, kp,
+                nof_iterations=cfg.nof_ldpc_iterations)
             hards.append(h_g.reshape(b, cg, -1))
             oks.append(ok_g.reshape(b, cg))
             its.append(it_g.reshape(b, cg))
@@ -281,19 +260,12 @@ def _decode_sch_groups(cfg: PuschRxConfig, parts, cb_ranges, harq_buffer):
         cb_ok = oks[0] if len(oks) == 1 else jnp.concatenate(oks, 1)
         ldpc_iters = its[0] if len(its) == 1 else jnp.concatenate(its, 1)
     else:
-        if _resolve_use_pallas(cfg.use_pallas_decoder):
-            from .decode_select import decode_fn
-
-            dec2 = lambda x: decode_fn(True)(x, seg.base_graph, z,
-                                             cfg.nof_ldpc_iterations)[0]
-        else:
-            dec2 = lambda x: ldpc_decode(
-                x, seg.base_graph, z,
-                nof_iterations=cfg.nof_ldpc_iterations)[0]
         hards = []
         for part in parts:
             cg = part.shape[1]
-            hards.append(dec2(part.reshape(b * cg, -1)).reshape(b, cg, -1))
+            h_g, _ = ldpc_decode(part.reshape(b * cg, -1), seg.base_graph, z,
+                                 nof_iterations=cfg.nof_ldpc_iterations)
+            hards.append(h_g.reshape(b, cg, -1))
         hard = hards[0] if len(hards) == 1 else jnp.concatenate(hards, 1)
         cb_ok = None
         ldpc_iters = jnp.full((b, c), cfg.nof_ldpc_iterations, jnp.int32)
@@ -310,9 +282,8 @@ def _decode_sch_groups(cfg: PuschRxConfig, parts, cb_ranges, harq_buffer):
     crc_name = "CRC24A" if seg.tb_crc_bits == 24 else "CRC16"
     # TB CRC straight off the (B, C, Kpay) planes; the TB payload is
     # likewise returned per-CB ("tb_bits_cb") because the device-side
-    # (B, C, Kpay) -> (B, tbs) flatten lowers to an XLA loop-ized
-    # relayout copy worth ~9% of the pipeline — `flatten_tb_bits` does
-    # it for free on fetched numpy arrays.
+    # (B, C, Kpay) -> (B, tbs) flatten would be a relayout copy on the
+    # device — `flatten_tb_bits` does it for free on fetched numpy arrays.
     tb_ok = crc_check_device_cbs(payload3, crc_name,
                                  cfg.tbs + seg.tb_crc_bits)
     return {
@@ -604,9 +575,8 @@ def build_pusch_rx_from_grid(cfg: PuschRxConfig):
             h_sub = jnp.transpose(ce, (2, 3, 1, 0, 4))  # (B, S, P, L, 2)
             nvar_port = jnp.transpose(noise, (1, 0))  # (B, P)
             w_full, nv = weights_fn(h_sub, nvar_port)  # (B,S,L,P,2), (B,S,L)
-            # Slot-constant noise broadcasts LAZILY over the symbol axis —
-            # materializing the (B, T, S, L) broadcast was ~2x 1M estimated
-            # cycles in the round-3 profile.
+            # Slot-constant noise broadcasts LAZILY over the symbol axis
+            # instead of materializing the (B, T, S, L) broadcast.
             nv_struct = nv[:, None]  # (B, 1, S, L)
             cfo_b = (jnp.mean(est["cfo_hz"], axis=(0, 1))
                      if (cfg.compensate_cfo and len(dmrs_epochs) >= 2) else None)

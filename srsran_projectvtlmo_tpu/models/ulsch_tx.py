@@ -63,8 +63,7 @@ def _uci_field_encoder(nof_payload_bits: int, nof_enc_bits: int, qm: int):
     # every stage (CRC matmul, allocation scatter, butterfly XOR encode,
     # rate-match gather) is a static-shape device op, so long UCI payloads
     # ride the SAME jitted UE-emulator slot program as the SCH
-    # (TS 38.212 Section 6.3.2; closes the round-2 "device-side UCI polar
-    # encoding >11 bits" gap).
+    # (TS 38.212 Section 6.3.2).
     from ..ops import uci as uci_mod
     from ..ops.crc import crc_device
     from ..ops.polar import PolarCode, polar_encode, polar_allocate

@@ -1,29 +1,44 @@
 """ctypes loader for the native host kernel library (native/host_kernels.cpp).
 
-Builds the shared library on first use if a toolchain is available; callers
-fall back to the pure-Python implementations when it is not.
+Builds the shared library into native/build/ on first use if a toolchain is
+available (under a file lock, then an atomic rename, so concurrent test
+workers never see a half-written library); callers fall back to the
+pure-Python implementations when it is not.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import functools
+import os
 import subprocess
 from pathlib import Path
 
 import numpy as np
 
 _NATIVE_DIR = Path(__file__).resolve().parent.parent / "native"
-_LIB = _NATIVE_DIR / "libsrsran_tpu_host.so"
+_LIB = _NATIVE_DIR / "build" / "libsrsran_host.so"
+
+
+def _build() -> None:
+    _LIB.parent.mkdir(parents=True, exist_ok=True)
+    with open(_LIB.parent / ".host_build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if _LIB.exists():
+            return
+        tmp = _LIB.with_name(f"{_LIB.name}.{os.getpid()}.tmp")
+        subprocess.run(["make", "-C", str(_NATIVE_DIR), f"TARGET={tmp}"],
+                       check=True, capture_output=True, timeout=120)
+        os.replace(tmp, _LIB)
 
 
 @functools.lru_cache(maxsize=1)
 def load() -> ctypes.CDLL | None:
     if not _LIB.exists():
         try:
-            subprocess.run(["make", "-C", str(_NATIVE_DIR)], check=True,
-                           capture_output=True, timeout=120)
-        except Exception:
+            _build()
+        except (OSError, subprocess.SubprocessError):
             return None
     try:
         lib = ctypes.CDLL(str(_LIB))

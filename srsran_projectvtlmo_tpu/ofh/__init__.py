@@ -1,6 +1,6 @@
 """O-RAN 7.2 fronthaul (Open Fronthaul) wire protocols.
 
-TPU-native split of the reference's lib/ofh: IQ (de)compression and bit
+The device/host split of the reference's lib/ofh: IQ (de)compression and bit
 packing run as batched device programs (ops/ofh_compression), while the
 byte-level eCPRI and U-plane message framing here is host-side — it sits at
 the NIC boundary, exactly where the reference keeps it on CPU too.

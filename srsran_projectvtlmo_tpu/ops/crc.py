@@ -2,11 +2,12 @@
 
 The reference ships generic/LUT/CLMUL CPU implementations
 (reference: lib/phy/upper/channel_coding/crc_calculator_generic_impl.cpp:29-55).
-On TPU, CRC over GF(2) is a bit-matrix product: crc(m) = XOR over set message
+On the device, CRC over GF(2) is a bit-matrix product: crc(m) = XOR over set message
 bits of basis vectors r_d = x^(d + L) mod g(x), where d is the bit's distance
 from the message end.  We precompute the basis once per (poly, max length) on
-the host (log-doubling, vectorized) and evaluate on device as a single MXU
-matmul with an exact float32 accumulation followed by mod 2.
+the host (log-doubling, vectorized) and evaluate on device as a single
+matmul with an exact float32 accumulation followed by mod 2 (0/1 operands
+are exact even when the inputs round to TF32, and the sums stay below 2^24).
 
 `crc_host` gives an identical host-side numpy implementation for small inputs
 and for the segmenter's per-CB CRC attachment.
@@ -112,7 +113,7 @@ def _packed_basis(name: str, n: int):
 def crc_device(bits, name: str):
     """Batched device CRC: bits (..., N) uint8/int -> (..., order) uint8 MSB-first.
 
-    Short messages use one float32 matmul on the MXU (exact for N < 2^24);
+    Short messages use one float32 matmul (exact for N < 2^24);
     long messages (transport-block CRCs over hundreds of kilobits) pack the
     basis rows into int32 lanes and XOR-reduce — ~25x less memory traffic
     than streaming the float basis, bit-identical by construction.
@@ -141,9 +142,8 @@ def crc_check_device_cbs(payload_bits_3d, name: str, total_len: int):
       total_len: number of leading bits covered by the check.
 
     Returns (...) bool.  Avoids materializing the flattened TB: a
-    (C, Kpay)-flatten of oddly-sized bit planes lowers to an XLA loop-ized
-    relayout copy that cost ~10% of the round-3 PUSCH pipeline profile; the
-    zero-basis rows fold the flatten into the dot_general instead.
+    (C, Kpay)-flatten of oddly-sized bit planes would lower to a relayout
+    copy; the zero-basis rows fold the flatten into the dot_general instead.
     """
     order, _ = POLYS[name]
     c, kpay = payload_bits_3d.shape[-2], payload_bits_3d.shape[-1]

@@ -4,7 +4,7 @@ The reference implements exact max-log LLRs as per-modulation piecewise-linear
 interval tables (reference: lib/phy/upper/channel_modulation/
 demodulation_mapper_qam16.cpp:36-90, *_qam256.cpp:48-84).  Here the same
 max-log values are computed from true constellation distances, which is exact
-for Gray-mapped square QAM and maps the hot loop onto the MXU:
+for Gray-mapped square QAM and maps the hot loop onto a matrix product:
 
     metric(y, c) = |c|^2 - 2 Re(y c*)          (the |y|^2 term cancels)
     llr_b = (min over c: b=1 - min over c: b=0) / noise_var

@@ -17,6 +17,11 @@ import jax.numpy as jnp
 
 from ..utils.cplx import to_cplx, from_cplx
 
+#: The small per-RE products below run at full float32: a GPU's default
+#: TF32 inputs (10-bit mantissa) put ZF symbols ~1e-2 off the reference's
+#: float closed form, outside the stored-vector tolerance.
+HIGHEST = jax.lax.Precision.HIGHEST
+
 
 def equalize_mmse_1xn(y_pair, h_pair, noise_var_port, tx_scaling: float = 1.0):
     """MMSE equalization of a single-layer transmission over N rx ports.
@@ -71,11 +76,10 @@ def mmse_weights(h_pair, noise_var_port, tx_scaling: float = 1.0):
     """
     nlayers = h_pair.shape[-2]
     nvar = noise_var_port[..., None, :]  # (..., 1, P)
-    # All small-L paths run in EXPLICIT real arithmetic: TPU has no native
-    # complex type, and XLA lowers complex abs to hypot, complex division to
-    # a full Smith divide, and tiny complex einsums through bf16 dot_generals
-    # — together these dominated the round-2 pipeline profile.  Real-pair
-    # elementwise math fuses into a handful of VPU passes instead.
+    # All small-L paths run in EXPLICIT real arithmetic: XLA lowers complex
+    # abs to hypot, complex division to a full Smith divide, and tiny complex
+    # einsums to matrix-unit calls; real-pair elementwise math fuses into a
+    # handful of elementwise passes instead.
     hr = h_pair[..., 0] * tx_scaling  # (..., S, P, L)
     hi = h_pair[..., 1] * tx_scaling
 
@@ -133,10 +137,11 @@ def mmse_weights(h_pair, noise_var_port, tx_scaling: float = 1.0):
     # Whitened normal matrix A = H^H N^-1 H + I and cross term B = H^H N^-1.
     ninv = 1.0 / jnp.maximum(nvar, 1e-38)  # (..., 1, P)
     ah_n = jnp.conj(jnp.swapaxes(h, -1, -2)) * ninv[..., None, :]  # (..., S, L, P)
-    a = jnp.einsum("...lp,...pk->...lk", ah_n, h) + jnp.eye(nlayers, dtype=h.dtype)
+    a = (jnp.einsum("...lp,...pk->...lk", ah_n, h, precision=HIGHEST)
+         + jnp.eye(nlayers, dtype=h.dtype))
     a_inv = jnp.linalg.inv(a)
 
-    w = jnp.einsum("...lk,...kp->...lp", a_inv, ah_n)  # (..., S, L, P)
+    w = jnp.einsum("...lk,...kp->...lp", a_inv, ah_n, precision=HIGHEST)  # (..., S, L, P)
     # Per-layer MMSE bias d = [A^-1]_ll in (0, 1]: unbias by 1/(1-d), post-eq
     # noise = d/(1-d).  Working with d directly avoids the 1-(1-d) float32
     # cancellation that would zero the noise variance at very high SNR.
@@ -158,10 +163,10 @@ def apply_weights(w_pair, y_pair):
     """
     wr, wi = w_pair[..., 0], w_pair[..., 1]
     yr, yi = y_pair[..., 0], y_pair[..., 1]
-    outr = (jnp.einsum("...slp,...tsp->...tsl", wr, yr)
-            - jnp.einsum("...slp,...tsp->...tsl", wi, yi))
-    outi = (jnp.einsum("...slp,...tsp->...tsl", wr, yi)
-            + jnp.einsum("...slp,...tsp->...tsl", wi, yr))
+    outr = (jnp.einsum("...slp,...tsp->...tsl", wr, yr, precision=HIGHEST)
+            - jnp.einsum("...slp,...tsp->...tsl", wi, yi, precision=HIGHEST))
+    outi = (jnp.einsum("...slp,...tsp->...tsl", wr, yi, precision=HIGHEST)
+            + jnp.einsum("...slp,...tsp->...tsl", wi, yr, precision=HIGHEST))
     return jnp.stack([outr, outi], axis=-1)
 
 
@@ -170,7 +175,7 @@ def apply_weights_ports_first(w_pair, y_pair, rot_pair=None):
 
     The port contraction is unrolled into explicit real multiply-adds: P and
     L are tiny (<= 4 / <= 2), so a dot_general would run as a pathological
-    2x4 batched matmul while the unrolled form is a single fused VPU pass
+    2x4 batched matmul while the unrolled form is a single fused elementwise pass
     over the grid.
 
     Args:
@@ -235,7 +240,7 @@ def zf_weights(h_pair, noise_var_port, tx_scaling: float = 1.0):
 
     ninv = 1.0 / jnp.maximum(nvar, 1e-38)
     ah_n = jnp.conj(jnp.swapaxes(h, -1, -2)) * ninv[..., None, :]
-    a = jnp.einsum("...lp,...pk->...lk", ah_n, h)  # no +I: pure ZF
+    a = jnp.einsum("...lp,...pk->...lk", ah_n, h, precision=HIGHEST)  # no +I: pure ZF
 
     if nlayers == 2:
         a00 = jnp.real(a[..., 0, 0])
@@ -259,7 +264,7 @@ def zf_weights(h_pair, noise_var_port, tx_scaling: float = 1.0):
         a_inv = jnp.linalg.inv(a)
         nvars = jnp.real(jnp.diagonal(a_inv, axis1=-2, axis2=-1))
 
-    w = jnp.einsum("...lk,...kp->...lp", a_inv, ah_n)
+    w = jnp.einsum("...lk,...kp->...lp", a_inv, ah_n, precision=HIGHEST)
     return from_cplx(w), nvars
 
 
@@ -298,8 +303,9 @@ def equalize_mmse_general(y_pair, h_pair, noise_var_port, tx_scaling: float = 1.
 
     # A = Hw^H Hw + I, rhs = Hw^H yw.
     ah = jnp.conj(jnp.swapaxes(hw, -1, -2))  # (..., R, L, P)
-    a = jnp.einsum("...lp,...pk->...lk", ah, hw) + jnp.eye(h.shape[-1], dtype=hw.dtype)
-    rhs = jnp.einsum("...lp,...p->...l", ah, yw)
+    a = (jnp.einsum("...lp,...pk->...lk", ah, hw, precision=HIGHEST)
+         + jnp.eye(h.shape[-1], dtype=hw.dtype))
+    rhs = jnp.einsum("...lp,...p->...l", ah, yw, precision=HIGHEST)
     sol = jnp.linalg.solve(a, rhs[..., None])[..., 0]  # (..., R, L)
 
     # Per-layer effective gain g_l = [A^{-1} Hw^H Hw]_{ll} = 1 - [A^{-1}]_{ll}.

@@ -12,10 +12,11 @@ ldpc_decoder_impl.cpp:116-135):
             (no scaling when the magnitude is infinite)
     soft  = promotion_sum(c2v', v2c)  (overflow promotes to +/-127 = fixed bit)
 
-The codeblock batch is the TPU batch axis; layers run as a lax.scan over a
-stacked edge table so one program serves every layer.  CRC-gated early stop is
-replaced by a fixed iteration count with an optional per-iteration convergence
-mask (TPU-friendly equivalent of the reference's per-CB early exit).
+The codeblock batch is the leading array axis; layers run as a lax.scan over
+a stacked edge table so one program serves every layer.  `ldpc_decode` runs a
+fixed iteration count; `ldpc_decode_es` adds the reference's per-CB CRC early
+stop as a per-iteration convergence mask with a batch-wide loop exit.  The
+CUDA kernel `decode_cuda.ldpc_decode_es_cuda` is its bit-exact twin.
 
 Layout: soft bits (B, NV+1, Z) int8 (last node is a scatter trash bin);
 check-to-variable messages live in the *check* domain (B, M, Emax, Z) so only
@@ -184,7 +185,7 @@ def ldpc_decode_es(
 ):
     """XLA early-stopping decoder (reference per-iteration CRC stop semantics).
 
-    Semantically identical to the Pallas ldpc_decode_pallas_es: after each full
+    Bit-exact with the CUDA ldpc_decode_es_cuda: after each full
     layer sweep, the CB CRC is checked on the systematic hard decisions; a
     passing codeblock's output is snapshotted at that iteration (bit-exact
     with stopping it) and the loop exits when all codeblocks have converged

@@ -94,7 +94,7 @@ def rate_dematch_gather_plan(bg: BaseGraph, z: int, nof_filler: int, rv: int,
     """Inverse (gather) tables for rate recovery: (src (k_max, N) int32 with
     -1 = no contribution, filler_mask (N,)).
 
-    TPU scatters are slow; a dematch is at most ceil(E/N') gathers (k_max is
+    Gathers vectorize better than scatters; a dematch is at most ceil(E/N') gathers (k_max is
     1 for code rates above 1/3, 2-3 with repetition), each a fast
     vectorized take.
     """

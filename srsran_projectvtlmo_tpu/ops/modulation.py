@@ -67,7 +67,7 @@ def modulate(bits, mod: Modulation):
     """bits (..., nsym * Qm) uint8 -> complex64 symbols (..., nsym).
 
     Square QAM evaluates the TS 38.211 nested Gray formula arithmetically
-    from the bit planes — pure elementwise VPU work that fuses with its
+    from the bit planes — pure elementwise work that fuses with its
     producers, where a 2^Qm table lookup lowers to a slow general gather
     (the gather was >50% of the DL slot program's device profile).
 

@@ -110,8 +110,8 @@ def ofdm_demodulate(samples_pair, nsubc: int, dft_size: int, mu: int,
                     out_dtype: str = "f32"):
     """(..., nsamples, 2) baseband -> (..., nsym, nsubc, 2) resource grid.
 
-    out_dtype "bf16" stores the grid as bfloat16 real pairs — the TPU-native
-    analog of the reference's cbf16 resource grid
+    out_dtype "bf16" stores the grid as bfloat16 real pairs — the analog of
+    the reference's cbf16 resource grid
     (reference: lib/phy/support/resource_grid_impl.h:41-51) — halving grid
     HBM traffic between the lower PHY and the channel processors.
     """

@@ -1,4 +1,4 @@
-"""O-RAN fronthaul IQ compression (BFP + none) as batched TPU programs.
+"""O-RAN fronthaul IQ compression (BFP + none) as batched device programs.
 
 The reference implements O-RAN.WG4.CUS Annex A.1.2 block-floating-point
 compression with per-ISA SIMD kernels and a byte-level PRB packer

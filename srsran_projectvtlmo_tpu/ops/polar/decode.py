@@ -3,7 +3,7 @@
 Min-sum f/g recursion over the code tree, unrolled at trace time for the
 static (N, frozen set, PC set) of a PolarCode; the batch axis carries PDCCH
 candidates / UCI words.  Constituent-node pruning happens AT TRACE TIME —
-the idiomatic TPU counterpart of the reference's runtime SSC dispatch
+the array-program counterpart of the reference's runtime SSC dispatch
 (reference: lib/phy/upper/channel_coding/polar/polar_decoder_impl.cpp:209-374
 rate-0/rate-1/repetition node handling):
 

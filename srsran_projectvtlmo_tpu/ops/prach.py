@@ -282,12 +282,11 @@ def prach_detect(rx_freq_pair, cfg: PrachDetectorConfig, oversampling: int = 2):
             nof_ports, cfg.preamble.scs_hz, cfg.fmt,
             cfg.zero_correlation_zone, cfg.combine_symbols)
     metric, ta = _detect_jit(rx_freq_pair, cfg, nfft, margin)
-    from ..utils.xfer import to_host
 
     # ONE compact (B, nof_preambles) fetch; the threshold scan is a numpy
     # vector compare (reference finishes inside detect,
     # prach_detector_generic_impl.cpp:300-339).
-    metric, ta = to_host((metric, ta))
+    metric, ta = jax.device_get((metric, ta))
     results = []
     for b in range(metric.shape[0]):
         hits = np.flatnonzero(metric[b] > thr)

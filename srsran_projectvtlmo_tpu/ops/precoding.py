@@ -1,7 +1,7 @@
 """Layer mapping and channel precoding (TS 38.211 Sections 7.3.1.3-7.3.1.5).
 
 Codeword -> layers is a reshape; layers -> antenna ports is one einsum over the
-precoding matrix -- the MXU-native equivalent of the reference's per-RE
+precoding matrix -- the matrix-unit equivalent of the reference's per-RE
 AVX kernels (reference: include/srsran/phy/generic_functions/precoding/
 channel_precoder.h:49-61, lib/phy/generic_functions/precoding/*).
 """

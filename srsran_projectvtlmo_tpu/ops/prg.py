@@ -6,7 +6,7 @@ c(n) = x1(n + Nc) xor x2(n + Nc), Nc = 1600, with the 31-bit LFSRs
 
 The reference advances LFSR state sequentially with SIMD unrolls
 (reference: lib/phy/upper/sequence_generators/pseudo_random_generator_impl.cpp).
-The TPU-native formulation exploits linearity over GF(2): x2 with init c_init is
+The batched formulation exploits linearity over GF(2): x2 with init c_init is
 the XOR of basis streams x2^{(j)} (init = e_j) over the set bits of c_init, and
 x1 does not depend on c_init at all.  We precompute, once per process,
 

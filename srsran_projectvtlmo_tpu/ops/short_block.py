@@ -3,7 +3,7 @@
 Encoding: K=1 repetition (with modulation placeholders), K=2 simplex, K=3..11
 Reed-Muller (32, K) over the standard basis (Table 5.3.3.3-1).  Detection is
 brute-force maximum likelihood: correlate the received soft bits against all
-2^K codewords -- one (nllr x 2^K) matmul on the MXU plus an argmax, exactly the
+2^K codewords -- one (nllr x 2^K) matmul plus an argmax, exactly the
 structure of the reference's detector
 (reference: lib/phy/upper/channel_coding/short/short_block_detector_impl.h:33-42,
 short_block_encoder_impl.cpp:35-115).

@@ -1,11 +1,12 @@
-"""Multi-host execution: jax.distributed bring-up + the DCN x ICI mesh.
+"""Multi-host execution: jax.distributed bring-up + the (cell, sp) mesh.
 
 The reference distributes cells across machines through its executor topology
 and the O-RAN 7.2 fronthaul split (reference: apps/services/worker_manager.h:59-82,
-lib/du_low/du_low_impl.h:31-48 one upper_phy per cell).  The TPU-native
-equivalent: cells ride the *process/DCN* mesh axis (pure data parallel, no
+lib/du_low/du_low_impl.h:31-48 one upper_phy per cell).  Here cells ride the
+"cell" mesh axis, laid out across processes first (pure data parallel, no
 cross-cell collectives), while intra-cell axes (codeblock batches, baseband
-samples with overlap-save halos) ride the *ICI* axis inside each host's slice.
+samples with overlap-save halos) ride the "sp" axis over each process's own
+devices, whose interconnect carries their collectives.
 
 Single-process runs (tests, the virtual-device dryrun) degrade to the same
 mesh over local devices — programs are single-source either way; only the
@@ -47,10 +48,10 @@ class RanMesh:
     """The framework's canonical 2D mesh: ("cell", "sp").
 
     "cell" is the slot/cell data-parallel axis — laid out across *processes*
-    first so cell traffic (none on the hot path) never crosses ICI, and DCN
-    only ever carries per-cell inputs/outputs.  "sp" is the intra-cell
-    sequence/codeblock axis — laid out within a process so its collectives
-    (overlap-save ppermute halos, codeword allgather) ride ICI.
+    first, so the network between hosts only ever carries per-cell inputs
+    and outputs.  "sp" is the intra-cell sequence/codeblock axis — laid out
+    within a process so its collectives (overlap-save ppermute halos,
+    codeword allgather) stay on the host's device interconnect.
     """
 
     mesh: Mesh
@@ -59,14 +60,16 @@ class RanMesh:
 
 
 def make_ran_mesh(nof_cell_shards: int | None = None,
-                  nof_sp_shards: int | None = None) -> RanMesh:
-    """Build the (cell, sp) mesh over all addressable devices.
+                  nof_sp_shards: int | None = None,
+                  devices=None) -> RanMesh:
+    """Build the (cell, sp) mesh over `devices` (default: all of them).
 
-    Default layout: the cell axis spans processes (DCN), the sp axis spans
-    each process's local devices (ICI).  Single-process: cell x sp factor the
-    local device count (sp gets the contiguous fast axis).
+    Default layout: the cell axis spans processes, the sp axis spans each
+    process's local devices.  Single-process: cell x sp factor the device
+    count.  Every device reaches every other one directly, so the matrix is
+    the device list in order, with no topology to follow.
     """
-    devs = jax.devices()
+    devs = list(jax.devices() if devices is None else devices)
     nproc = jax.process_count()
     ndev = len(devs)
     per_proc = ndev // nproc
@@ -86,6 +89,6 @@ def make_ran_mesh(nof_cell_shards: int | None = None,
     matrix = np.array(devs).reshape(nof_cell_shards, nof_sp_shards)
     if nproc > 1:
         assert nof_cell_shards % nproc == 0 or nproc % nof_cell_shards == 0, \
-            "cell axis must align with process boundaries for DCN locality"
+            "cell axis must align with process boundaries"
     mesh = Mesh(matrix, axis_names=("cell", "sp"))
     return RanMesh(mesh=mesh, nof_cells=nof_cell_shards, nof_sp=nof_sp_shards)

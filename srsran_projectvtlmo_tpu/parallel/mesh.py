@@ -1,10 +1,10 @@
 """Device meshes and sharding helpers.
 
 The reference parallelizes with per-thread executors and CPU affinity
-(reference: apps/services/worker_manager.h:59-82); the TPU-native analog is a
-jax.sharding.Mesh whose axes carry cells/slots (data parallel over DCN/ICI) and
-codeblock batches (the LDPC batch axis, sharded over ICI).  XLA inserts the
-collectives; programs stay single-source.
+(reference: apps/services/worker_manager.h:59-82); the analog here is a
+jax.sharding.Mesh whose axes carry cells/slots (data parallel) and codeblock
+batches (the LDPC batch axis).  XLA inserts the collectives; programs stay
+single-source.
 """
 
 from __future__ import annotations

@@ -7,8 +7,8 @@ the hot path, matching the reference's independent per-cell upper PHYs
 (reference: lib/du_low/du_low_impl.h:31-48: one upper_phy per cell).
 
 The codeblock axis inside each cell remains a device-local batch; sharding it
-across chips (for very large TBs) is the ICI axis of the north-star config and
-can be expressed by adding a second mesh axis to the shardings here.
+across devices (for very large TBs) is the "sp" axis of the north-star config
+(parallel.cb_shard) and can be expressed by adding a second mesh axis to the shardings here.
 """
 
 from __future__ import annotations

@@ -2,7 +2,7 @@
 
 The reference's du_low owns one independent upper_phy per cell
 (reference: lib/du_low/du_low_impl.h:31-48), distributing cells across
-executors/machines.  TPU-native: cells with the same slot *structure* batch
+executors/machines.  Here cells with the same slot *structure* batch
 into ONE device program on the mesh's cell axis — per-cell parameters
 (rnti/n_id/slot sequences) ride as inputs via PuschRxConfig.dynamic_params,
 so heterogeneous RNTIs do not recompile.  Each per-cell HARQ pool stays
@@ -30,7 +30,6 @@ from ..ops import prg as prg_mod
 from ..phy.harq import RxBufferPool
 from ..phy.upper_phy import CellConfig, UpperPhy
 from ..utils.cplx import np_to_pair
-from ..utils.xfer import to_host
 from .distributed import RanMesh, make_ran_mesh
 
 
@@ -84,7 +83,6 @@ class MultiCellUpperPhy:
         """
         from jax.sharding import NamedSharding, PartitionSpec
         from ..phy import dl_slot as dl_mod
-        from ..utils.xfer import to_host
 
         assert len(requests) == self.nof_cells
         tx_datas = tx_datas or [None] * self.nof_cells
@@ -113,7 +111,7 @@ class MultiCellUpperPhy:
                 "cell", *([None] * (x.ndim - 1)))))
         grid, samples = program.run_batched(slot, batch, shard_fn=shard)
         if fetch:
-            return to_host(grid), to_host(samples)
+            return np.asarray(grid), np.asarray(samples)
         return grid, samples
 
     # ------------------------------------------------------------------ UL --
@@ -275,8 +273,8 @@ class MultiCellUpperPhy:
             proc = PuschUciProcessor(PuschUciConfig(rx=rx_cfg,
                                                     part2_size_map=p2map))
             a = proc._phase_a(sub, None, ref_in, signs_in, uci_fix)
-            csi1_np = to_host(a["csi1_bits"])
-            csi1_metric = to_host(a["csi1_metric"])
+            csi1_np = np.asarray(a["csi1_bits"])
+            csi1_metric = np.asarray(a["csi1_metric"])
             sizes = proc.csi2_sizes(csi1_np)
             ncell = len(pdus)
             ok = np.zeros(ncell, bool)
@@ -293,31 +291,31 @@ class MultiCellUpperPhy:
                 csi2_fix = (proc.csi2_fix_signs(size, [scrs[i] for i in idxs])
                             if size else None)
                 bout = pb(llr[sel], harq_in[sel], csi2_fix)
-                ok_b = to_host(bout["tb_crc_ok"])
-                cb_b = to_host(bout["tb_bits_cb"])
+                ok_b = np.asarray(bout["tb_crc_ok"])
+                cb_b = np.asarray(bout["tb_bits_cb"])
                 for row, i in enumerate(idxs):
                     ok[i] = bool(ok_b[row])
                     bits[i] = flatten_tb_bits(cb_b[row][None], rx_cfg.tbs)[0]
                     harq_soft[i] = bout["harq_soft"][row]
                     if size:
-                        csi2_rows[i] = to_host(bout["csi2_bits"])[row]
-                        csi2_metric[i] = float(to_host(bout["csi2_metric"])[row])
-            ack_bits = to_host(a["harq_ack_bits"]) if nof_ack else None
-            ack_metric = to_host(a["harq_ack_metric"]) if nof_ack else None
+                        csi2_rows[i] = np.asarray(bout["csi2_bits"])[row]
+                        csi2_metric[i] = float(np.asarray(bout["csi2_metric"])[row])
+            ack_bits = np.asarray(a["harq_ack_bits"]) if nof_ack else None
+            ack_metric = np.asarray(a["harq_ack_metric"]) if nof_ack else None
         else:
             rx = cached_pusch_rx_from_grid(rx_cfg)
             res = rx(sub, harq_in, ref_in, signs_in, uci_fix)
-            ok = to_host(res["tb_crc_ok"])
-            bits = flatten_tb_bits(to_host(res["tb_bits_cb"]), rx_cfg.tbs)
+            ok = np.asarray(res["tb_crc_ok"])
+            bits = flatten_tb_bits(np.asarray(res["tb_bits_cb"]), rx_cfg.tbs)
             harq_soft = res["harq_soft"]
-            ack_bits = to_host(res["harq_ack_bits"]) if nof_ack else None
-            ack_metric = to_host(res["harq_ack_metric"]) if nof_ack else None
+            ack_bits = np.asarray(res["harq_ack_bits"]) if nof_ack else None
+            ack_metric = np.asarray(res["harq_ack_metric"]) if nof_ack else None
             if nof_csi1:
-                csi1_np = to_host(res["csi1_bits"])
-                csi1_metric = to_host(res["csi1_metric"])
+                csi1_np = np.asarray(res["csi1_bits"])
+                csi1_metric = np.asarray(res["csi1_metric"])
                 if const_csi2:
-                    csi2_rows = to_host(res["csi2_bits"])
-                    csi2_metric = to_host(res["csi2_metric"])
+                    csi2_rows = np.asarray(res["csi2_bits"])
+                    csi2_metric = np.asarray(res["csi2_metric"])
         for c, pdu in enumerate(pdus):
             if buf_idxs[c] is not None:
                 self.harq_pools[c].store(buf_idxs[c], ncb, nbits,

@@ -3,7 +3,7 @@
 The signal-processing analog of context parallelism (SURVEY §5.7): the lower
 PHY's long sample streams shard across chips, and stages whose windows span
 the boundary (FIR filtering, CP-offset DFT windows) exchange halo samples
-with ring neighbours over ICI via `jax.lax.ppermute` inside `shard_map` —
+with ring neighbours via `jax.lax.ppermute` inside `shard_map` —
 instead of gathering the whole stream to one device.
 
 Reference counterparts: the lower PHY streams samples symbol-by-symbol on one
@@ -162,7 +162,7 @@ def sharded_ofdm_demodulate(samples_pair, nsubc: int, dft_size: int, mu: int,
 
     Each device owns the DFT windows starting inside its shard and fetches
     up to one window of halo samples from its right ring neighbour —
-    overlap-save on ICI. Numerically identical to ops.ofdm.ofdm_demodulate.
+    overlap-save halos. Numerically identical to ops.ofdm.ofdm_demodulate.
 
     Args:
       samples_pair: (..., nsamples, 2) slot baseband (host or device).

@@ -6,7 +6,7 @@ Replaces the reference's per-RE resource-grid-mapper loops
 (reference: lib/phy/support/resource_grid_mapper_impl.cpp,
 include/srsran/phy/generic_functions/precoding/channel_precoder.h:49-61,
 lib/phy/upper/channel_processors/pdsch_processor_concurrent_impl.cpp:31-58)
-with a TPU-native *gather plan*: every RE of every port grid is produced by ONE
+with a *gather plan*: every RE of every port grid is produced by ONE
 `jnp.take` from a concatenated source buffer (zero RE + each channel's
 precoded symbols), with all index math done once on the host at plan-build
 time.  Slot-dependent VALUES (DM-RS/CSI-RS pilots, DCI codewords) are program

@@ -2,7 +2,7 @@
 
 reference: lib/phy/upper/upper_phy_error_handler_impl.cpp (error notifier for
 late or failed slots), lib/phy/lower error notifier (late resource grids,
-radio overflow/underflow).  The TPU pipeline's analog of a "late slot" is a
+radio overflow/underflow).  The device pipeline's analog of a "late slot" is a
 slot whose device program missed its deadline; the handler records it and
 invokes a notifier callback.
 """

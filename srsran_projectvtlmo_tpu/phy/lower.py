@@ -2,7 +2,7 @@
 
 The reference runs self-re-enqueueing DL/UL task chains on dedicated executors
 feeding a radio gateway (reference: lib/phy/lower/lower_phy_baseband_processor.cpp:78-196);
-on TPU the sample clock is simulated or externally fed, so the lower PHY is a
+here the sample clock is simulated or externally fed, so the lower PHY is a
 host loop that drives the jitted OFDM programs and moves samples through a
 baseband gateway (radio/).
 

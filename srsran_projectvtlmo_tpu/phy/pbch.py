@@ -134,8 +134,7 @@ def pbch_encode(msg: PbchMessage) -> np.ndarray:
     c_il = interleave(jnp.asarray(b[None]), B)
     u = polar_allocate(c_il, code)
     x = polar_encode(u, code.n)
-    from ..utils.xfer import to_host
-    return to_host(polar_rm.rate_match(x, code))[0]
+    return np.asarray(polar_rm.rate_match(x, code))[0]
 
 
 def pbch_modulate(msg: PbchMessage) -> np.ndarray:

@@ -55,8 +55,7 @@ def pdcch_encode(dci_bits: np.ndarray, rnti: int, e: int) -> np.ndarray:
     c_il = interleave(jnp.asarray(c[None]), k)
     u = polar_allocate(c_il, code)
     x = polar_encode(u, code.n)
-    from ..utils.xfer import to_host
-    return to_host(polar_rm.rate_match(x, code))[0]
+    return np.asarray(polar_rm.rate_match(x, code))[0]
 
 
 def pdcch_scrambling_cinit(n_id: int, n_rnti: int) -> int:

@@ -33,7 +33,6 @@ from dataclasses import dataclass
 import jax.numpy as jnp
 import numpy as np
 
-from ..utils.xfer import to_host
 
 from ..models.pusch_rx import (
     PuschRxConfig, cached_pusch_rx_from_grid, cached_pusch_phase_b,
@@ -107,7 +106,7 @@ class PuschUciProcessor:
             a = self._phase_a(grid_pair, None, ref_dmrs, dyn_signs, dyn_uci_fix)
         else:
             a = self._phase_a(grid_pair)
-        csi1_np = to_host(a["csi1_bits"])
+        csi1_np = np.asarray(a["csi1_bits"])
         sizes = self.csi2_sizes(csi1_np)
         assert len(set(sizes)) == 1, "mixed csi2 sizes in one batch not supported yet"
         csi2_size = sizes[0]
@@ -118,14 +117,14 @@ class PuschUciProcessor:
             csi2_fix = self.csi2_fix_signs(csi2_size, scr_bits)
         out = dict(phase_b(a["codeword_llr"], harq_buffer, csi2_fix))
         out["csi1_bits"] = csi1_np
-        out["csi1_metric"] = to_host(a["csi1_metric"])
+        out["csi1_metric"] = np.asarray(a["csi1_metric"])
         out["csi1_valid"] = out["csi1_metric"] > 0.0
         out["csi2_size"] = csi2_size
         if csi2_size:
-            out["csi2_valid"] = to_host(out["csi2_metric"]) > 0.0
-        out["tb_bits"] = flatten_tb_bits(to_host(out["tb_bits_cb"]), rx.tbs)
+            out["csi2_valid"] = np.asarray(out["csi2_metric"]) > 0.0
+        out["tb_bits"] = flatten_tb_bits(np.asarray(out["tb_bits_cb"]), rx.tbs)
         out["snr_db"], out["evm"], out["ta_s"] = a["snr_db"], a["evm"], a["ta_s"]
         if rx.nof_harq_ack_bits:
-            out["harq_ack_bits"] = to_host(a["harq_ack_bits"])
-            out["harq_ack_metric"] = to_host(a["harq_ack_metric"])
+            out["harq_ack_bits"] = np.asarray(a["harq_ack_bits"])
+            out["harq_ack_metric"] = np.asarray(a["harq_ack_metric"])
         return out

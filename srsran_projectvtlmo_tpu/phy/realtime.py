@@ -6,7 +6,7 @@ Mirrors the reference's baseband processor architecture
 ul_process tasks re-enqueue themselves on dedicated executors with bounded
 buffer queues and throttling; lib/phy/lower/processors/uplink/prach/
 prach_processor_worker.h:48-102: wait -> collecting -> processing window
-state machine).  On TPU the compute is asynchronous device dispatch, so the
+state machine).  Here the compute is asynchronous device dispatch, so the
 "slots in flight" window (max_proc_delay_slots) maps naturally onto queued
 device programs whose results are only synced when the deadline accountant
 drains them.

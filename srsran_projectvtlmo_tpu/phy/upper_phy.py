@@ -31,7 +31,6 @@ from ..ops import ofdm as ofdm_mod
 from ..ops import prach as prach_mod
 from ..ops.dmrs import dmrs_type1_sequence
 from ..utils.cplx import np_to_pair, pair_to_np
-from ..utils.xfer import to_host
 from . import pucch as pucch_mod
 from .harq import RxBufferPool
 
@@ -47,9 +46,10 @@ class ExpertPhyConfig:
     """
 
     pusch_decoder_max_iterations: int = 6
-    #: None = auto (Pallas kernel on TPU, XLA elsewhere; the reference's
-    #: impl selection "auto", channel_coding_factories.cpp:103-110).
-    use_pallas_decoder: bool | None = None
+    #: Early-stop LDPC decoder: "cuda", "xla" or None = by platform
+    #: (ops.ldpc.select; the reference's impl selection "auto",
+    #: channel_coding_factories.cpp:103-110).
+    ldpc_decoder: str | None = None
     max_proc_delay_slots: int = 2
     log_level: str = "warning"
     #: When set, completed UL slot grids append to this binary capture file
@@ -72,7 +72,7 @@ class CellConfig:
     #: First RB of the CORESET for PDCCH placement.
     coreset_rb_start: int = 0
     #: Store the assembled DL resource grid as bfloat16 real pairs (the
-    #: TPU-native analog of the reference's cbf16 grid storage, reference:
+    #: analog of the reference's cbf16 grid storage, reference:
     #: lib/phy/support/resource_grid_impl.h:41-51).  Assembly still
     #: ACCUMULATES in float32 (precoding einsums, overlapping adds); only
     #: the materialized grid — what the OFDM modulator reads and what
@@ -187,11 +187,11 @@ class UpperPhy:
             pdcch_pdus=tuple(request.pdcch), ssb_pdus=tuple(request.ssb))
         if not fetch:
             return grid_pair, samples
-        out_grid = pair_to_np(to_host(grid_pair))
+        out_grid = pair_to_np(np.asarray(grid_pair))
         if cfg.nof_tx_ports == 1:
             out_grid = out_grid[0]
             samples = samples[0]
-        return out_grid, to_host(samples)
+        return out_grid, np.asarray(samples)
 
     # ------------------------------------------------------------------ UL --
 
@@ -296,7 +296,7 @@ class UpperPhy:
             # compile key so hop-PRB churn never recompiles.
             hop_symbol=hop, second_hop_prb=0 if hop is not None else None,
             nof_ldpc_iterations=exp.pusch_decoder_max_iterations,
-            use_pallas_decoder=exp.use_pallas_decoder,
+            ldpc_decoder=exp.ldpc_decoder,
             dynamic_params=True,
         )
 
@@ -307,16 +307,22 @@ class UpperPhy:
         ref = pusch_dmrs_ref_values(slot, pdu)
         return sub, jnp.asarray(np_to_pair(ref))[None]
 
-    def _process_pusch(self, slot, pdu, grid):
-        # Every PDU runs through the dynamic-value program: the DM-RS
-        # reference (absolute slot + n_id, per-hop PRBs), descrambling signs
-        # (rnti/n_id) and the UCI placeholder fix signs are device INPUTS,
-        # so one compiled program per shape serves every UE and every slot —
-        # including ACK/CSI-on-PUSCH, intra-slot hopping and DM-RS type 2
-        # (reference analog: per-slot PDU churn,
-        # fapi_to_phy_translator.cpp:290-351).  CSI part 2 with a varying
-        # part2_size_map runs the two-phase part1->part2 protocol
-        # (phy.pusch_uci; reference: pusch_processor_impl.cpp:40-92).
+    def _pusch_inputs(self, slot, pdu, grid):
+        """Program configuration and device inputs for one PUSCH PDU.
+
+        Every PDU runs through the dynamic-value program: the DM-RS
+        reference (absolute slot + n_id, per-hop PRBs), descrambling signs
+        (rnti/n_id) and the UCI placeholder fix signs are device INPUTS, so
+        one compiled program per shape serves every UE and every slot —
+        including ACK/CSI-on-PUSCH, intra-slot hopping and DM-RS type 2
+        (reference analog: per-slot PDU churn,
+        fapi_to_phy_translator.cpp:290-351).  CSI part 2 with a varying
+        part2_size_map runs the two-phase part1->part2 protocol
+        (phy.pusch_uci; reference: pusch_processor_impl.cpp:40-92).
+
+        Returns (rx_cfg, p2map or None when single-phase, scrambling bits,
+        (sub, ref_in, signs_in, uci_fix)).
+        """
         nof_ack = getattr(pdu, "nof_harq_ack_bits", 0)
         nof_csi1 = getattr(pdu, "nof_csi_part1_bits", 0)
         p2map = tuple(getattr(pdu, "part2_size_map", ()) or ())
@@ -330,21 +336,6 @@ class UpperPhy:
         rx_cfg = self._pusch_rx_cfg(slot, pdu, nof_csi2=const_csi2,
                                     two_phase=two_phase)
         sub, ref_in = self._pusch_grid_and_ref(slot, pdu, grid)
-        seg = rx_cfg.segmentation
-        buf_idx = self.harq_pool.reserve(
-            slot, pdu.rnti, pdu.harq_id, seg.nof_cb, new_data=pdu.new_data
-        )
-        if buf_idx is None and not pdu.new_data:
-            self.nof_dropped_harq_reservations += 1
-            import logging
-
-            logging.getLogger("upper_phy").warning(
-                "HARQ pool exhausted: rnti=0x%x harq=%d retransmission "
-                "decodes without soft-combining history", pdu.rnti, pdu.harq_id)
-        n = seg.nof_cw_bits_per_cb
-        harq = None
-        if buf_idx is not None and not pdu.new_data:
-            harq = self.harq_pool.get_soft(buf_idx, seg.nof_cb, n)[None]
         from ..ops import prg as prg_mod
 
         cinit = ((pdu.rnti << 15) + pdu.n_id) & 0x7FFFFFFF
@@ -370,8 +361,41 @@ class UpperPhy:
                        fix(plan.csi1_bit_idx, nof_csi1),
                        None if two_phase
                        else fix(plan.csi2_bit_idx, const_csi2))
+        return (rx_cfg, p2map if two_phase else None, scr,
+                (sub, ref_in, signs_in, uci_fix))
 
-        if two_phase:
+    def pusch_program(self, slot, pdu, grid):
+        """(jitted program, args) that `process_ul_slot` dispatches for a
+        single-phase PUSCH PDU carrying new data, on the demodulated carrier
+        `grid` (P, 14, nsubc, 2): for timing and inspecting the program."""
+        rx_cfg, p2map, _, (sub, ref_in, signs_in, uci_fix) = self._pusch_inputs(
+            slot, pdu, grid)
+        if p2map is not None:
+            raise ValueError("a PDU with a varying CSI part-2 map runs two programs")
+        return cached_pusch_rx_from_grid(rx_cfg), (sub, None, ref_in, signs_in, uci_fix)
+
+    def _process_pusch(self, slot, pdu, grid):
+        nof_ack = getattr(pdu, "nof_harq_ack_bits", 0)
+        nof_csi1 = getattr(pdu, "nof_csi_part1_bits", 0)
+        rx_cfg, p2map, scr, (sub, ref_in, signs_in, uci_fix) = self._pusch_inputs(
+            slot, pdu, grid)
+        seg = rx_cfg.segmentation
+        buf_idx = self.harq_pool.reserve(
+            slot, pdu.rnti, pdu.harq_id, seg.nof_cb, new_data=pdu.new_data
+        )
+        if buf_idx is None and not pdu.new_data:
+            self.nof_dropped_harq_reservations += 1
+            import logging
+
+            logging.getLogger("upper_phy").warning(
+                "HARQ pool exhausted: rnti=0x%x harq=%d retransmission "
+                "decodes without soft-combining history", pdu.rnti, pdu.harq_id)
+        n = seg.nof_cw_bits_per_cb
+        harq = None
+        if buf_idx is not None and not pdu.new_data:
+            harq = self.harq_pool.get_soft(buf_idx, seg.nof_cb, n)[None]
+
+        if p2map is not None:
             from .pusch_uci import PuschUciConfig, PuschUciProcessor
 
             proc = PuschUciProcessor(PuschUciConfig(rx=rx_cfg,
@@ -383,32 +407,32 @@ class UpperPhy:
             out = rx(sub, harq, ref_in, signs_in, uci_fix)
         if buf_idx is not None:
             self.harq_pool.store(buf_idx, seg.nof_cb, n, out["harq_soft"][0])
-        ok = bool(to_host(out["tb_crc_ok"])[0])
+        ok = bool(np.asarray(out["tb_crc_ok"])[0])
         if ok:
             self.harq_pool.release(pdu.rnti, pdu.harq_id)
         inds = [
             CrcIndication(slot=slot, rnti=pdu.rnti, harq_id=pdu.harq_id, tb_crc_ok=ok),
             RxDataIndication(
                 slot=slot, rnti=pdu.rnti, harq_id=pdu.harq_id,
-                tb_bits=flatten_tb_bits(to_host(out["tb_bits_cb"]), rx_cfg.tbs)[0] if ok else None,
+                tb_bits=flatten_tb_bits(np.asarray(out["tb_bits_cb"]), rx_cfg.tbs)[0] if ok else None,
             ),
         ]
         if nof_ack or nof_csi1:
             csi2_n = out.get("csi2_bits")
             uci = UciIndication(
                 slot=slot, rnti=pdu.rnti,
-                harq_bits=(to_host(out["harq_ack_bits"])[0] if nof_ack
+                harq_bits=(np.asarray(out["harq_ack_bits"])[0] if nof_ack
                            else np.empty(0, np.uint8)),
                 uci_bits=None,
-                valid=bool(to_host(out["harq_ack_metric"])[0] > 0.0)
-                if nof_ack else bool(to_host(out["csi1_metric"])[0] > 0.0),
+                valid=bool(np.asarray(out["harq_ack_metric"])[0] > 0.0)
+                if nof_ack else bool(np.asarray(out["csi1_metric"])[0] > 0.0),
             )
             if nof_csi1:
-                uci.csi1_bits = to_host(out["csi1_bits"])[0]
-                uci.csi1_valid = bool(to_host(out["csi1_metric"])[0] > 0.0)
-            if csi2_n is not None and np.size(to_host(csi2_n)) > 0:
-                uci.csi2_bits = to_host(csi2_n)[0]
-                uci.csi2_valid = bool(to_host(out["csi2_metric"])[0] > 0.0)
+                uci.csi1_bits = np.asarray(out["csi1_bits"])[0]
+                uci.csi1_valid = bool(np.asarray(out["csi1_metric"])[0] > 0.0)
+            if csi2_n is not None and np.size(np.asarray(csi2_n)) > 0:
+                uci.csi2_bits = np.asarray(csi2_n)[0]
+                uci.csi2_valid = bool(np.asarray(out["csi2_metric"])[0] > 0.0)
             inds.append(uci)
         return inds
 
@@ -430,11 +454,11 @@ class UpperPhy:
         sub = grid[None, :, pdu.start_symbol:pdu.start_symbol + pdu.nof_symbols,
                    k0:k0 + pdu.nof_rb * 12, :]
         est = srs_mod.srs_estimate(sub, scfg)
-        ce = pair_to_np(to_host(est["ce_pair"]))[0]
+        ce = pair_to_np(np.asarray(est["ce_pair"]))[0]
         return SrsIndication(
             slot=slot, rnti=pdu.rnti, channel=ce,
-            noise_var=float(np.mean(to_host(est["noise_var"]))),
-            time_alignment_s=float(np.mean(to_host(est["ta_s"]))),
+            noise_var=float(np.mean(np.asarray(est["noise_var"]))),
+            time_alignment_s=float(np.mean(np.asarray(est["ta_s"]))),
         )
 
     def _process_pucch(self, slot, pdu, grid):
@@ -455,9 +479,9 @@ class UpperPhy:
             )
             bits, metric, sr = pucch_mod.detect_pucch_format0(sub, f0)
             return UciIndication(slot=slot, rnti=pdu.rnti,
-                                 harq_bits=to_host(bits)[0], uci_bits=None,
-                                 valid=bool(to_host(metric)[0] > 1.0),
-                                 sr_detected=bool(to_host(sr)[0]))
+                                 harq_bits=np.asarray(bits)[0], uci_bits=None,
+                                 valid=bool(np.asarray(metric)[0] > 1.0),
+                                 sr_detected=bool(np.asarray(sr)[0]))
         if pdu.format == 1:
             hop = getattr(pdu, "second_hop_prb", None)
             f1 = pucch_mod.PucchFormat1Config(
@@ -480,8 +504,8 @@ class UpperPhy:
                 ], axis=1)[None]
             bits, metric = pucch_mod.detect_pucch_format1(sub, f1)
             return UciIndication(slot=slot, rnti=pdu.rnti,
-                                 harq_bits=to_host(bits)[0], uci_bits=None,
-                                 valid=bool(to_host(metric)[0] > 1.0))
+                                 harq_bits=np.asarray(bits)[0], uci_bits=None,
+                                 valid=bool(np.asarray(metric)[0] > 1.0))
         if pdu.format == 2:
             f2 = pucch_mod.PucchFormat2Config(
                 n_id=pdu.n_id, n_id0=pdu.n_id0, rnti=pdu.rnti, slot=slot,
@@ -491,6 +515,6 @@ class UpperPhy:
             bits, ok = pucch_mod.process_pucch_format2(sub, f2)
             return UciIndication(slot=slot, rnti=pdu.rnti,
                                  harq_bits=np.empty(0, np.uint8),
-                                 uci_bits=to_host(bits)[0],
-                                 valid=bool(to_host(ok)[0]))
+                                 uci_bits=np.asarray(bits)[0],
+                                 valid=bool(np.asarray(ok)[0]))
         raise ValueError(f"unsupported PUCCH format {pdu.format}")

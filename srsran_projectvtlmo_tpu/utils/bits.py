@@ -1,7 +1,7 @@
 """Packed-bit helpers (numpy host side).
 
 The reference keeps coded bits in a packed `bit_buffer`
-(reference: include/srsran/adt/bit_buffer.h); on TPU the natural carriers are
+(reference: include/srsran/adt/bit_buffer.h); on the device the natural carriers are
 uint8 0/1 arrays for compute and packed uint32 words (LSB-first) for storage/IO.
 """
 

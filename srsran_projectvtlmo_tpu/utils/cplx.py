@@ -1,8 +1,7 @@
 """Complex-sample carriers with real-only device I/O.
 
-The target TPU runtime does not support complex64 across the host<->device
-boundary (and complex is not a native TPU dtype anyway); the framework-wide
-convention is: complex values cross program boundaries as a trailing real/imag
+The framework-wide convention, kept from its first target (whose runtime
+could not move complex64 between host and device): complex values cross program boundaries as a trailing real/imag
 pair axis `(..., 2)` in float32 (or bfloat16 for resource-grid storage, matching
 the reference's cbf16 grids, reference: lib/phy/support/resource_grid_impl.h:41),
 and are materialized as jnp complex64 only inside jitted programs.

@@ -59,7 +59,7 @@ def init_logging(levels: dict[str, str] | None = None, stream=None) -> None:
     default = _LEVELS[levels.get("all", "warning")]
     qh = logging.handlers.QueueHandler(_queue)
     for mod in _MODULES:
-        lg = logging.getLogger(f"srsran_tpu.{mod}")
+        lg = logging.getLogger(f"srsran.{mod}")
         lg.handlers = [qh]
         lg.propagate = False
         lg.setLevel(_LEVELS.get(levels.get(mod, ""), default))
@@ -68,7 +68,7 @@ def init_logging(levels: dict[str, str] | None = None, stream=None) -> None:
 def get_logger(module: str) -> logging.Logger:
     """Module logger ('PHY', 'FAPI', 'OFH', ...); init_logging() configures
     levels, otherwise stdlib defaults apply."""
-    return logging.getLogger(f"srsran_tpu.{module}")
+    return logging.getLogger(f"srsran.{module}")
 
 
 def hex_dump(data, max_size: int | None = None) -> str:

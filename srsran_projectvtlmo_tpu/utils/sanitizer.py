@@ -2,7 +2,7 @@
 
 The reference relies on compiler sanitizers for its lockfree/threaded host
 code (reference: CMakeLists.txt:59-60 ENABLE_TSAN/ENABLE_ASAN, mutually
-exclusive, run in CI).  The TPU rebuild's host side is Python, where TSAN
+exclusive, run in CI).  The rebuild's host side is Python, where TSAN
 does not apply, so this module provides the equivalent instrumentation for
 the framework's own threaded components (phy/realtime.py, utils/log.py,
 utils/tracing.py):

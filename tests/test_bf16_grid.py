@@ -56,8 +56,8 @@ def test_bf16_grid_decodes_with_bounded_evm_penalty():
 @pytest.mark.slow
 def test_bf16_grid_4port_2layer_parity():
     """The north-star shape (4 ports, 2 layers) decodes identically with
-    cbf16-equivalent grids, EVM penalty bounded (VERDICT r2 item 1's
-    precondition for flipping the default)."""
+    cbf16-equivalent grids, EVM penalty bounded (the precondition for
+    bf16 grids being the default)."""
     cfg32 = PuschRxConfig(nof_rb=16, modulation=Modulation.QAM64,
                           target_code_rate=0.6, nof_rx_ports=4, nof_layers=2,
                           dft_size=512, numerology=1)

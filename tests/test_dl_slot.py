@@ -191,8 +191,7 @@ class TestSrsEndToEnd:
 
 class TestDlDynamicValues:
     """Per-UE values (rnti/n_id/rv/precoding) are runtime inputs: a changing
-    UE set never recompiles the DL slot program (VERDICT r2 item 3;
-    reference analog: per-slot PDU churn is the normal case,
+    UE set never recompiles the DL slot program (reference analog: per-slot PDU churn is the normal case,
     lib/fapi_adaptor/phy/fapi_to_phy_translator.cpp:290-351)."""
 
     def _pdu(self, rnti, rv=0, prec=None):
@@ -267,7 +266,7 @@ class TestDlDynamicValues:
 
 class TestMultiPortControlChannels:
     """Precoded PDCCH/SSB beyond port 0 and the full CSI-RS row table
-    (VERDICT r2 item 7; reference: resource_grid_mapper_impl.cpp,
+    (reference: resource_grid_mapper_impl.cpp,
     nzp_csi_rs_generator_impl.cpp:89-198)."""
 
     def test_4port_all_channels_grid_parity(self):

@@ -82,33 +82,6 @@ class TestDecoder:
                                       err_msg=f"soft mismatch bg={bg} z={z}")
         np.testing.assert_array_equal(np.asarray(hard)[0], g_hard)
 
-    @pytest.mark.slow
-    @pytest.mark.parametrize("bg,z", [(BaseGraph.BG1, 13), (BaseGraph.BG2, 16)])
-    @pytest.mark.parametrize("variant", ["v1", "v2", "v3"])
-    def test_pallas_matches_xla(self, bg, z, variant):
-        """All Pallas kernels (interpret mode on CPU) are bit-exact vs the XLA decoder."""
-        if variant == "v1":
-            from srsran_projectvtlmo_tpu.ops.ldpc.decode_pallas import ldpc_decode_pallas
-        elif variant == "v3":
-            from srsran_projectvtlmo_tpu.ops.ldpc.decode_pallas import (
-                ldpc_decode_pallas_v3 as ldpc_decode_pallas,
-            )
-        else:
-            from srsran_projectvtlmo_tpu.ops.ldpc.decode_pallas_v2 import (
-                ldpc_decode_pallas_v2 as ldpc_decode_pallas,
-            )
-
-        g = get_graph(bg, z)
-        rng = np.random.default_rng(z + 5)
-        info = rng.integers(0, 2, (2, g.k)).astype(np.uint8)
-        cw = np.asarray(ldpc_encode(jnp.asarray(info), bg, z))[:, 2 * z:]
-        noisy = (1 - 2 * cw.astype(np.float64)) * 7 + rng.normal(0, 3.0, cw.shape)
-        llr = np.clip(np.round(noisy), -20, 20).astype(np.int8)
-        h_ref, s_ref = ldpc_decode(jnp.asarray(llr), bg, z, nof_iterations=3)
-        h_pal, s_pal = ldpc_decode_pallas(jnp.asarray(llr), bg, z, 3)
-        np.testing.assert_array_equal(np.asarray(s_ref), np.asarray(s_pal))
-        np.testing.assert_array_equal(np.asarray(h_ref), np.asarray(h_pal))
-
     def test_corrects_noise(self):
         bg, z = BaseGraph.BG1, 52
         g = get_graph(bg, z)

@@ -4,8 +4,7 @@ One real DL slot's IQ goes DU -> RU over the modeled split-7.2 fronthaul:
 resource grid -> BFP compression -> packed PRBs -> U-plane section framing
 (+ C-plane type 1) -> eCPRI -> VLAN Ethernet frames -> decode back through
 the sequence-id and rx-window checkers -> grid parity within the BFP
-quantization bound (VERDICT r2 item 9;
-reference: tests/integrationtests/ofh/, lib/ofh/receiver/).
+quantization bound (reference: tests/integrationtests/ofh/, lib/ofh/receiver/).
 """
 
 import numpy as np

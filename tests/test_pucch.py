@@ -189,8 +189,7 @@ def test_group_hopping_varies_per_slot():
 
 class TestFormat1Hopping:
     """Intra-slot frequency hopping: per-hop OCC despread + channel estimate,
-    metric averaged (VERDICT r2 item 8;
-    reference: pucch_detector_impl.cpp:172-176)."""
+    metric averaged (reference: pucch_detector_impl.cpp:172-176)."""
 
     def _tx_hop(self, cfg, bits, h_per_hop, noise, rng):
         seqs, w_data_h, w_dmrs_h = pucch._f1_tables(cfg)

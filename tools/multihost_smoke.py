@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
 """Multi-host smoke test: TWO local processes through jax.distributed run the
 sharded multi-cell PUSCH slot program and must produce results identical to a
-single-process run (VERDICT r2 item 10; SURVEY Section 5.8).
+single-process run (SURVEY Section 5.8).
 
 Each process owns 2 virtual CPU devices; the global (cell=2 x sp=2) mesh puts
-one cell per PROCESS (the DCN axis) and the sample/sp axis inside each
+one cell per PROCESS (the cell axis) and the sample/sp axis inside each
 process.  Run with no arguments: the parent computes the single-process
 reference, spawns both workers, and diffs their reported results.
 """

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Cumulative-prefix timing of the honest 4-port/2-layer PUSCH pipeline:
 rebuilds the pusch_rx stages inline and times P1..P5 jitted prefixes, so each
-stage's in-fused marginal cost is (P_k - P_{k-1}).  Also sweeps decoder tile
-sizes."""
+stage's in-fused marginal cost is (P_k - P_{k-1}).  P5 adds the early-stop
+LDPC decoder that `ops.ldpc.select` picks for the platform."""
 import os
 import sys
 import time
@@ -119,21 +119,21 @@ def main():
                 bufs[j] = out[:, i]
         return jnp.stack(bufs, 1)
 
-    def full(grid, iters, b_tile):
+    def full(grid, iters):
         soft = dematch(grid)
-        from srsran_projectvtlmo_tpu.ops.ldpc.decode_pallas import ldpc_decode_pallas
-        hard, _ = ldpc_decode_pallas(soft.reshape(b * c, -1), seg.base_graph, z,
-                                     iters, 0.8, b_tile)
+        from srsran_projectvtlmo_tpu.ops.ldpc.select import es_decoder
+
+        hard, *_ = es_decoder()(soft.reshape(b * c, -1), seg.base_graph, z,
+                                "CRC24B", seg.nof_payload_bits_per_cb,
+                                nof_iterations=iters)
         return hard
 
     timeit("P1 estimate", jax.jit(est), grid)
     timeit("P2 +mmse", jax.jit(eq), grid)
     timeit("P3 +demap", jax.jit(demap), grid)
     timeit("P4 +descr+dematch", jax.jit(dematch), grid)
-    for bt in (8, 16):
-        for it in (2, 6):
-            timeit(f"P5 full {it}it bt={bt}",
-                   jax.jit(lambda g, i=it, t=bt: full(g, i, t)), grid, reps=5)
+    for it in (2, 6):
+        timeit(f"P5 full {it}it", jax.jit(lambda g, i=it: full(g, i)), grid, reps=5)
 
 
 if __name__ == "__main__":

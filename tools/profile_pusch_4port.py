@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Profile the honest north-star PUSCH config on the real TPU.
+"""Profile the honest north-star PUSCH config on the device.
 
 Config mirrors the reference benchmark profile `scs30_100MHz_256qam_rv0_4port_nlayer`
 (reference: tests/benchmarks/phy/upper/channel_processors/pusch/pusch_processor_benchmark.cpp:186-196):
@@ -40,7 +40,7 @@ def main():
                         target_code_rate=948.0 / 1024.0,
                         nof_rx_ports=nports, nof_layers=nlayers,
                         dft_size=4096, numerology=1,
-                        use_pallas_decoder=True, ldpc_early_stop=True)
+                        ldpc_early_stop=True)
     seg = cfg.segmentation
     print(f"TBS={cfg.tbs} nof_cb={seg.nof_cb} Z={seg.lifting_size} "
           f"ports={nports} layers={nlayers} batch={batch}", flush=True)

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Per-stage TPU timing of the north-star PUSCH pipeline (273 PRB QAM256,
+"""Per-stage device timing of the north-star PUSCH pipeline (273 PRB QAM256,
 4 rx ports, 2 layers, batch B). Each stage is jitted separately so the cost
 split is visible; the fused pipeline overlaps some of these."""
 import os
@@ -119,15 +119,13 @@ def main():
     soft_arr = jax.block_until_ready(dematch(sch_llr))
 
     # --- LDPC decode ------------------------------------------------------------
-    from srsran_projectvtlmo_tpu.ops.ldpc.decode_pallas import (
-        ldpc_decode_pallas, ldpc_decode_pallas_es)
+    from srsran_projectvtlmo_tpu.ops.ldpc.select import es_decoder, select_es_decoder
     flat = soft_arr.reshape(b * c, -1)
-    for it in (2, 6):
-        timeit(f"ldpc_decode_pallas {it}it", lambda x, i=it: ldpc_decode_pallas(
-            x, seg.base_graph, z, i)[0], flat, reps=5)
     kp = seg.nof_payload_bits_per_cb
-    timeit("ldpc_decode_pallas_es max6", lambda x: ldpc_decode_pallas_es(
-        x, seg.base_graph, z, "CRC24B", kp, 6)[0], flat, reps=5)
+    for it in (2, 6):
+        timeit(f"ldpc_decode_es ({select_es_decoder()}) max{it}",
+               lambda x, i=it: es_decoder()(x, seg.base_graph, z, "CRC24B", kp,
+                                            nof_iterations=i)[0], flat, reps=5)
 
     # --- CRC check ---------------------------------------------------------------
     from srsran_projectvtlmo_tpu.ops.crc import crc_check_device

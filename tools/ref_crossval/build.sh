@@ -1,7 +1,7 @@
 #!/bin/bash
 # Builds the reference-vector dumper against the read-only reference mount.
 # The resulting binary drives the srsRAN generic LDPC encoder/decoder so the
-# TPU rebuild can be cross-validated bit-for-bit (tools/ref_crossval/generate.py).
+# rebuild can be cross-validated bit-for-bit (tools/ref_crossval/generate.py).
 set -e
 REF=${REF:-/root/reference}
 OUT=${OUT:-/tmp/refbuild}

@@ -4,7 +4,7 @@
 // with deterministic pseudo-random LLRs + scrambling bits, and prints
 // (a) the per-field encoded-bit budgets and (b) the exact LLR stream each
 // decoder buffer receives. tools/ref_crossval/generate.py diffs this against
-// the TPU rebuild's ran.ulsch_info + ops.ulsch_demux plan.
+// the rebuild's ran.ulsch_info + ops.ulsch_demux plan.
 //
 // Usage: dump_ulsch <nof_prb> <nof_symbols> <dmrs_mask_bits...14> <qm> <layers>
 //                   <tbs> <code_rate_x1000> <o_ack> <o_csi1> <o_csi2>

@@ -1,5 +1,5 @@
 // Drives the reference's generic LDPC encoder and decoder to dump golden
-// vectors for cross-validating the TPU rebuild.
+// vectors for cross-validating the rebuild.
 #include "ldpc_encoder_generic.h"
 #include "ldpc_decoder_generic.h"
 #include "srsran/adt/bit_buffer.h"
